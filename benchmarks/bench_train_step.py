@@ -1,16 +1,20 @@
-"""Full-train-step benchmark: fused block-0 vs flax, plus ablations.
+"""Train step time on the GPU for the presets, at full width.
 
-Steady-state ms/step of the complete fused train program (sampling →
-gather/preprocess → fwd/bwd → Adam) on the attached accelerator, via the
-fetch-synced slope timer (utils/profiling). Usage:
+    python benchmarks/bench_train_step.py [--batches 32,256]
 
-    python benchmarks/bench_train_step.py sweep      # B in {32,256,1024,2048}
-    python benchmarks/bench_train_step.py ablate     # B=2048 component splits
+One full train program per step (sampling → gather/preprocess → forward →
+backward → Adam), plain JAX autodiff, from a random int16 device store made
+on the device from a seed: config #1 (classifier) at each batch, config #2
+(siamese, weighted_l1) at its batch 64, config #4 (log-mel 2-D CNN) at 32.
+Prints one JSON line per (config, batch) with ms/step (median of waited
+calls, ``utils.profiling.time_fn``). Runs on a GPU only.
 
-Round-2 measured (v5e): fused/flax = 2.89/3.77 ms @ B=32 (1.30x),
-35.8/38.3 @ 256, 143.9/159.0 @ 1024, 301.7/396.3 @ 2048 (1.31x).
+(The custom-VJP block ops this script once compared against autodiff lost
+on the H100 and were removed; see PERF.md.)
 """
 
+import argparse
+import json
 import os
 import sys
 
@@ -18,192 +22,68 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from voicemap_tpu.config import (
-    DataConfig, EncoderConfig, ExperimentConfig, TrainConfig,
-)
-from voicemap_tpu.data import synthetic
-from voicemap_tpu.data.dataset import SpeakerDataset
-from voicemap_tpu.models.classifier import SpeakerClassifier
-from voicemap_tpu.train import steps as steps_mod
-from voicemap_tpu.train.state import init_state, make_optimizer
-from voicemap_tpu.utils.profiling import throughput
-
-ROOT = "/tmp/vm_bench_corpus"
+from voicemap import backend
+from voicemap.config import (ExperimentConfig, SiameseConfig, TrainConfig,
+                             classifier_baseline, melspec_2d, siamese_verification)
+from voicemap.train import steps as steps_mod
+from voicemap.utils.profiling import time_fn
 
 
-def _dataset():
-    if not os.path.isdir(os.path.join(ROOT, "LibriSpeech")):
-        synthetic.generate_corpus(
-            ROOT, subsets=("dev-clean",),
-            spec=synthetic.SyntheticSpec(
-                n_speakers=32, utterances_per_speaker=10,
-                min_seconds=4.0, max_seconds=6.0, seed=0,
-            ),
-        )
-    return SpeakerDataset(subsets=("dev-clean",), seconds=3.0,
-                          data_root=ROOT, seed=0)
+def random_store(n_utts: int = 1024, n_speakers: int = 64, seconds: float = 4.0,
+                 sample_rate: int = 16000, seed: int = 0) -> steps_mod.DeviceStore:
+    """A device store of random int16 audio, made on the device."""
+    t = int(seconds * sample_rate)
+    audio = jax.random.randint(jax.random.PRNGKey(seed), (n_utts, t), -8000, 8000,
+                               jnp.int16)
+    labels = np.arange(n_utts, dtype=np.int32) % n_speakers
+    per = n_utts // n_speakers
+    utts = np.arange(n_utts, dtype=np.int32).reshape(per, n_speakers).T
+    return steps_mod.DeviceStore(
+        audio=audio, lengths=jnp.full((n_utts,), t, jnp.int32),
+        labels=jnp.asarray(labels), speaker_utts=jnp.asarray(utts),
+        speaker_counts=jnp.full((n_speakers,), per, jnp.int32))
 
 
-def _build(ds, batch, fused, dropout=0.05, blockn=None, quant="none"):
-    cfg = ExperimentConfig(
-        mode="classifier",
-        data=DataConfig(data_root=ROOT, seconds=3.0, downsampling=4),
-        encoder=EncoderConfig(dropout=dropout),
-        train=TrainConfig(batch_size=batch, use_fused_block0=fused,
-                          use_fused_blockn=blockn, quant_forward=quant),
-    )
-    store = steps_mod.device_store_for(cfg, ds.to_store())
-    model = SpeakerClassifier(cfg.encoder, num_classes=ds.num_speakers)
-    v = model.init(jax.random.PRNGKey(0),
-                   jnp.zeros((1, cfg.data.model_length, 1)), train=False)
-    tx = make_optimizer(cfg.train.clipnorm)
-    state = init_state(v["params"], v["batch_stats"], tx,
-                       cfg.train.learning_rate)
-    step, _ = steps_mod.make_classifier_train_step(model, cfg)
-    return cfg, store, model, state, step
+def build(cfg: ExperimentConfig, n_classes: int):
+    from voicemap.train.loop import build_model, init_model_state, make_step
+
+    model = build_model(cfg, num_classes=n_classes)
+    step, _ = make_step(model, cfg)
+    return init_model_state(model, cfg), step
 
 
-def _time_step(step, state, store, batch, iters=30):
+def cases(batches):
+    for b in batches:
+        yield "classifier", classifier_baseline(train=TrainConfig(batch_size=b))
+    yield "siamese_weighted_l1", siamese_verification(
+        siamese=SiameseConfig(distance_metric="weighted_l1"))
+    yield "melspec_2d", melspec_2d(train=TrainConfig(batch_size=32))
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--batches", default="32,256")
+    p.add_argument("--iters", type=int, default=20)
+    args = p.parse_args()
+    backend.enable_compile_cache()
+    dev = backend.require_gpu()
+    print(backend.nvidia_smi_line(), flush=True)
     key = jax.random.PRNGKey(1)
-    tp = throughput(lambda s, st, k: step(s, st, k)[1]["loss"],
-                    state, store, key, items_per_call=batch, iters=iters)
-    return tp["sec_per_call"]
-
-
-def sweep(batches=(32, 256, 1024, 2048)):
-    ds = _dataset()
-    for B in batches:
-        res = {}
-        variants = [("flax", False, False), ("fused_b0", True, False),
-                    ("fused_auto", True, None)]
-        for name, fused, blkn in variants:
-            _, store, _, state, step = _build(ds, B, fused, blockn=blkn)
-            res[name] = _time_step(step, state, store, B,
-                                   iters=30 if B <= 256 else 10)
-            print(f"B={B} {name}: {res[name]*1e3:.3f} ms/step = "
-                  f"{B/res[name]:.0f} utt/s", flush=True)
-        print(f"B={B} speedup vs flax: b0 {res['flax']/res['fused_b0']:.2f}x, "
-              f"auto {res['flax']/res['fused_auto']:.2f}x", flush=True)
-
-
-def quant_sweep(batches=(32, 256, 1024, 2048)):
-    """int8 training-forward experiment (VERDICT r3 next #3): the production
-    auto policy vs the same step with blocks-1+ forward convs in s8×s8→s32
-    (TrainConfig.quant_forward='int8', straight-through backward)."""
-    ds = _dataset()
-    for B in batches:
-        res = {}
-        variants = [("auto_bf16", True, None, "none"),
-                    ("int8_fwd", True, None, "int8")]
-        for name, fused, blkn, q in variants:
-            _, store, _, state, step = _build(ds, B, fused, blockn=blkn,
-                                              quant=q)
-            res[name] = _time_step(step, state, store, B,
-                                   iters=30 if B <= 256 else 10)
-            print(f"B={B} {name}: {res[name]*1e3:.3f} ms/step = "
-                  f"{B/res[name]:.0f} utt/s", flush=True)
-        print(f"B={B} int8 fwd speedup vs auto: "
-              f"{res['auto_bf16']/res['int8_fwd']:.2f}x", flush=True)
-
-
-def ablate(B=2048):
-    from voicemap_tpu.models import fused_train
-    from voicemap_tpu.train import losses
-
-    ds = _dataset()
-    cfg, store, model, state, step = _build(ds, B, True)
-    print(f"full fused step: {_time_step(step, state, store, B, 10)*1e3:.2f} ms",
-          flush=True)
-
-    _, store0, _, state0, step0 = _build(ds, B, True, dropout=0.0)
-    print(f"dropout=0: {_time_step(step0, state0, store0, B, 10)*1e3:.2f} ms",
-          flush=True)
-
-    x = jnp.zeros((B, cfg.data.model_length, 1), jnp.float32)
-    y = jnp.zeros((B,), jnp.int32)
-    enc_cfg = cfg.encoder
-
-    @jax.jit
-    def fb(params, bs, x, y):
-        def loss(p):
-            logits, _ = fused_train.classifier_train_forward(
-                p, bs, enc_cfg, x, jax.random.PRNGKey(0), impl="pallas")
-            return losses.softmax_ce(logits, y)
-        return jax.grad(loss)(params)
-
-    t = throughput(fb, state.params, state.batch_stats, x, y,
-                   items_per_call=1, iters=10)["sec_per_call"]
-    print(f"fwd+bwd only (no sampling/preprocess/Adam): {t*1e3:.2f} ms",
-          flush=True)
-
-
-def ablate_blocks(B=2048, blockn="jnp"):
-    """In-context attribution: fwd+bwd time of every encoder PREFIX.
-
-    Builds truncated encoders (blocks 0..i−1 + global-max + Dense head +
-    softmax-CE) and times grad() of each; successive differences attribute
-    each block's cost *in context* (residual traffic, layout transitions) —
-    the round-2 gap was ~105 ms between standalone block times and the full
-    step (BASELINE.md round-2 ablation; VERDICT r2 next #2).
-    """
-    import dataclasses
-
-    from voicemap_tpu.models import fused_train
-    from voicemap_tpu.train import losses
-
-    ds = _dataset()
-    cfg, _, _, _, _ = _build(ds, B, True, dropout=0.0)
-    full_enc = cfg.encoder
-    x = jnp.zeros((B, cfg.data.model_length, 1), jnp.float32)
-    y = jnp.zeros((B,), jnp.int32)
-
-    prev = 0.0
-    for nb in range(1, len(full_enc.filter_multipliers) + 1):
-        enc = dataclasses.replace(
-            full_enc,
-            filter_multipliers=full_enc.filter_multipliers[:nb],
-            kernel_sizes=full_enc.kernel_sizes[:nb],
-            pool_sizes=full_enc.pool_sizes[:nb],
-            dilations=full_enc.dilations[:nb],
-            dropout=0.0,
-        )
-        model = SpeakerClassifier(enc, num_classes=ds.num_speakers)
-        v = model.init(jax.random.PRNGKey(0),
-                       jnp.zeros((1, cfg.data.model_length, 1)), train=False)
-
-        @jax.jit
-        def fb(params, bs, x, y):
-            def loss(p):
-                logits, _ = fused_train.classifier_train_forward(
-                    p, bs, enc, x, None, impl="pallas", blockn=blockn)
-                return losses.softmax_ce(logits, y)
-            return jax.grad(loss)(params)
-
-        t = throughput(fb, v["params"], v["batch_stats"], x, y,
-                       items_per_call=1, iters=10)["sec_per_call"]
-        print(f"[{blockn}] prefix blocks 0..{nb-1}: {t*1e3:7.2f} ms "
-              f"(marginal block {nb-1}: {(t-prev)*1e3:+7.2f} ms)", flush=True)
-        prev = t
+    stores = {}
+    for name, cfg in cases([int(b) for b in args.batches.split(",")]):
+        seconds = 4.0 if cfg.data.downsampling > 1 else 3.5
+        if seconds not in stores:
+            stores[seconds] = random_store(seconds=seconds)
+        state, step = build(cfg, 64)
+        t = time_fn(lambda s: step(s, stores[seconds], key)[1]["loss"], state,
+                    iters=args.iters)
+        print(json.dumps({"bench": "train_step", "config": name,
+                          "batch": cfg.train.batch_size,
+                          "p50_ms": t["p50_s"] * 1e3, "mean_ms": t["mean_s"] * 1e3,
+                          "device": dev}), flush=True)
 
 
 if __name__ == "__main__":
-    part = sys.argv[1] if len(sys.argv) > 1 else "sweep"
-    print("backend:", jax.default_backend(), flush=True)
-    if part == "sweep":
-        bs = (tuple(int(b) for b in sys.argv[2].split(","))
-              if len(sys.argv) > 2 else (32, 256, 1024, 2048))
-        sweep(bs)
-    elif part == "quant":
-        bs = (tuple(int(b) for b in sys.argv[2].split(","))
-              if len(sys.argv) > 2 else (32, 256, 1024, 2048))
-        quant_sweep(bs)
-    elif part == "ablate":
-        ablate()
-    elif part == "blocks":
-        ablate_blocks(
-            B=(int(sys.argv[3]) if len(sys.argv) > 3 else 2048),
-            blockn=(sys.argv[2] if len(sys.argv) > 2 else "jnp"),
-        )
-    else:
-        raise SystemExit(f"unknown part {part}")
+    main()

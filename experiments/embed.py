@@ -3,8 +3,7 @@
 The inference-side counterpart of the training CLIs: point it at audio files
 (or a whole indexed subset) and it writes ``embeddings`` (N, D) float32 +
 ``paths`` to an .npz, running the full production on-device pipeline —
-gather → stride-decimate → whiten → conv encoder (the fused Pallas path on
-TPU). The reference had no such tool (embeddings were pulled ad hoc inside
+gather → stride-decimate → whiten → conv encoder. The reference had no such tool (embeddings were pulled ad hoc inside
 ``voicemap/utils.py :: n_shot_task_evaluation`` and the analysis notebooks);
 this makes the embedding function a first-class product surface.
 """
@@ -15,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicemap_tpu import config as C
+from voicemap import config as C
 
 
 def parse_args():
@@ -61,14 +60,14 @@ def _store_from_files(paths, cfg):
     """Build an in-memory AudioStore from explicit audio files."""
     import numpy as np
 
-    from voicemap_tpu.data import audio
-    from voicemap_tpu.data.dataset import AudioStore
+    from voicemap.data import audio
+    from voicemap.data.dataset import AudioStore
 
     frag = cfg.data.fragment_length
     waves = []
     for p in paths:
         if p.endswith(".flac"):
-            from voicemap_tpu.data import flac_ext
+            from voicemap.data import flac_ext
 
             data, sr = flac_ext.read(p)
         else:
@@ -100,13 +99,16 @@ def _store_from_files(paths, cfg):
 
 def main():
     args = parse_args()
+    from voicemap import backend
+
+    backend.enable_compile_cache()
     if not args.files and not args.subsets:
         raise SystemExit("give audio files or --subsets")
     import numpy as np
 
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import build_model, init_model_state
+    from voicemap.eval import nshot
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import build_model, init_model_state
 
     cfg = C.ExperimentConfig(
         mode=args.mode,
@@ -124,7 +126,7 @@ def main():
     )
     ds = None
     if args.subsets:
-        from voicemap_tpu.data.dataset import (
+        from voicemap.data.dataset import (
             STREAMING_THRESHOLD_BYTES,
             dataset_from_config,
             estimate_store_bytes,
@@ -159,7 +161,7 @@ def main():
 
     mgr = None
     if args.checkpoint_dir:
-        from voicemap_tpu.train.checkpoints import CheckpointManager
+        from voicemap.train.checkpoints import CheckpointManager
 
         mgr = CheckpointManager(args.checkpoint_dir)
         num_classes = mgr.template_num_classes(args.which, num_classes)
@@ -178,7 +180,7 @@ def main():
 
     qvars = None
     if args.int8 or args.qvars or args.save_qvars:
-        from voicemap_tpu.models.quant_infer import (
+        from voicemap.models.quant_infer import (
             load_qvars, quantize_from_store, save_qvars,
         )
 
@@ -192,8 +194,8 @@ def main():
                   f"{min(args.batch_size, int(store.labels.shape[0]))} "
                   "utterances")
         else:  # streaming: calibrate on the first corpus-order batch
-            from voicemap_tpu.data.pipeline import iter_embed_batches
-            from voicemap_tpu.models.quant_infer import quantize_from_frags
+            from voicemap.data.pipeline import iter_embed_batches
+            from voicemap.models.quant_infer import quantize_from_frags
 
             frags, count = next(iter_embed_batches(ds, cfg, args.batch_size))
             qvars = quantize_from_frags(state, cfg, frags[:count])

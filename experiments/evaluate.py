@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicemap_tpu import config as C
+from voicemap import config as C
 
 
 def parse_args():
@@ -38,7 +38,7 @@ def parse_args():
     p.add_argument("--compute-dtype", default="bfloat16")
     p.add_argument("--max-store-seconds", type=float, default=30.0)
     p.add_argument("--fast", action="store_true",
-                   help="embed with the Pallas fused-conv inference forward (TPU)")
+                   help="embed with the serving forward (models/fast_infer.py)")
     p.add_argument("--int8", action="store_true",
                    help="embed through the int8 PTQ serving path (blocks 1+ "
                         "s8×s8→s32, calibrated on the eval store) — the "
@@ -87,10 +87,9 @@ _SERIES_COLORS = ["#2a78d6", "#eb6834", "#1baf7a", "#eda100"]
 
 def plot_sweep(results, out_png, subsets):
     """Accuracy-vs-k line figure (the reference README's results plot)."""
-    import matplotlib
+    from voicemap.utils.plotting import pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
 
     by_n = {}
     for r in results:
@@ -133,12 +132,15 @@ def plot_sweep(results, out_png, subsets):
 
 def main():
     args = parse_args()
+    from voicemap import backend
+
+    backend.enable_compile_cache()
     import jax
 
-    from voicemap_tpu.data.dataset import dataset_from_config
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import build_model, init_model_state
+    from voicemap.data.dataset import dataset_from_config
+    from voicemap.eval import nshot
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import build_model, init_model_state
 
     cfg = C.ExperimentConfig(
         mode=args.mode,
@@ -164,7 +166,7 @@ def main():
 
     mgr = None
     if args.checkpoint_dir:
-        from voicemap_tpu.train.checkpoints import CheckpointManager
+        from voicemap.train.checkpoints import CheckpointManager
 
         mgr = CheckpointManager(args.checkpoint_dir)
         num_classes = mgr.template_num_classes(args.which, num_classes)
@@ -199,7 +201,7 @@ def main():
     if args.protocol:
         import json
 
-        from voicemap_tpu.eval import protocol
+        from voicemap.eval import protocol
 
         if args.k_sweep:
             raise SystemExit(
@@ -241,12 +243,12 @@ def main():
     store = steps_mod.device_store_for(cfg, ds.to_store(args.max_store_seconds))
     qvars = None
     if args.qvars:
-        from voicemap_tpu.models.quant_infer import load_qvars
+        from voicemap.models.quant_infer import load_qvars
 
         qvars = load_qvars(args.qvars)
         print(f"int8 serving path: loaded artifact {args.qvars}")
     elif args.int8:
-        from voicemap_tpu.models.quant_infer import quantize_from_store
+        from voicemap.models.quant_infer import quantize_from_store
 
         qvars = quantize_from_store(state, cfg, store)
         print("int8 serving path: calibrated on the eval store")
@@ -288,7 +290,7 @@ def main():
     # --verification composes with both the single-point and --k-sweep paths
     # (the sweep reuses the store; EER/AUC embeds its own table).
     if args.verification:
-        from voicemap_tpu.eval.verification import evaluate_verification
+        from voicemap.eval.verification import evaluate_verification
 
         v = evaluate_verification(
             model, state, store, cfg, jax.random.PRNGKey(args.seed + 1),

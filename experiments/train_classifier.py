@@ -5,7 +5,7 @@ Rebuild of the reference entry point ``experiments/train_classifier.py``
 hyperparameter is an argparse flag over the same defaults.
 
 With no LibriSpeech on disk, ``--synthetic`` generates a LibriSpeech-shaped
-synthetic corpus first (see voicemap_tpu/data/synthetic.py).
+synthetic corpus first (see voicemap/data/synthetic.py).
 """
 
 import argparse
@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicemap_tpu import config as C
+from voicemap import config as C
 
 
 def parse_args():
@@ -42,29 +42,12 @@ def parse_args():
     p.add_argument("--k-way", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", default="bfloat16")
-    p.add_argument("--quant-forward", default="none",
-                   choices=["none", "int8"],
-                   help="EXPERIMENT: blocks-1+ forward convs in s8*s8->s32 "
-                        "with in-step dynamic scales (straight-through "
-                        "backward); re-validate accuracy per config")
-    p.add_argument("--fused-block0", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="fused block-0 train step (custom VJP + Pallas cores); "
-                        "auto = on for the TPU backend")
-    p.add_argument("--pallas-preprocess", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="fused Pallas gather+whiten over a pre-decimated device store "
-                        "(auto = on for TPU)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-path", default=None)
     p.add_argument("--dilated", action="store_true",
                    help="use the deeper dilated conv stack (BASELINE config #3)")
     p.add_argument("--melspec", action="store_true",
                    help="log-mel frontend + 2D-CNN embedder (BASELINE config #4)")
-    p.add_argument("--mel-geometry", default="librosa",
-                   choices=["librosa", "tpu"],
-                   help="librosa = hop 160/win 400 (pre-framed Pallas path); "
-                        "tpu = hop 128/win 384 (fully fused in-kernel framing)")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic corpus under --data-root first")
     p.add_argument("--synthetic-speakers", type=int, default=20)
@@ -72,13 +55,13 @@ def parse_args():
     p.add_argument("--synthetic-container", default="wav", choices=["wav", "flac"])
     p.add_argument("--pipeline", default="auto",
                    choices=["auto", "device", "streaming"],
-                   help="device = corpus resident in HBM (fused "
+                   help="device = corpus resident in device memory (fused "
                         "on-device sampling); streaming = prefetched "
-                        "host pipeline for corpora larger than HBM; "
+                        "host pipeline for corpora larger than device memory; "
                         "auto picks by estimated store size")
     p.add_argument("--dp", default="auto", choices=["auto", "on", "off"],
                    help="data-parallel training over all attached devices "
-                        "(auto = on for a multi-device TPU backend)")
+                        "(auto = on for a multi-device accelerator)")
     p.add_argument("--max-store-seconds", type=float, default=30.0)
     p.add_argument("--profile", default=None,
                    help="trace N eval-interval steps to this TensorBoard logdir")
@@ -95,7 +78,7 @@ def _resolve_val_subsets(args, default):
     if args.val_subsets is None:
         if args.synthetic:
             return list(default)
-        from voicemap_tpu.data.index import subset_available
+        from voicemap.data.index import subset_available
 
         missing = [s for s in default
                    if not subset_available(args.data_root, s)]
@@ -113,8 +96,11 @@ def _resolve_val_subsets(args, default):
 
 def main():
     args = parse_args()
+    from voicemap import backend
+
+    backend.enable_compile_cache()
     if args.synthetic:
-        from voicemap_tpu.data import synthetic
+        from voicemap.data import synthetic
 
         spec = synthetic.SyntheticSpec(
             n_speakers=args.synthetic_speakers,
@@ -142,8 +128,7 @@ def main():
         )
 
     mode = "melspec2d" if args.melspec else "classifier"
-    mel = (C.MelConfig(hop_length=128, win_length=384)
-           if args.mel_geometry == "tpu" else C.MelConfig())
+    mel = C.MelConfig()
     cfg = C.ExperimentConfig(
         name=mode,
         mode=mode,
@@ -166,11 +151,6 @@ def main():
             n_shot=args.n_shot,
             k_way=args.k_way,
             seed=args.seed,
-            use_pallas_preprocess=(None if args.pallas_preprocess == "auto"
-                                   else args.pallas_preprocess == "on"),
-            use_fused_block0=(None if args.fused_block0 == "auto"
-                              else args.fused_block0 == "on"),
-            quant_forward=args.quant_forward,
             checkpoint_dir=args.checkpoint_dir,
             log_path=args.log_path
             or os.path.join("logs", "classifier", "metrics.jsonl"),
@@ -178,7 +158,7 @@ def main():
     )
     print(f"experiment: {cfg.artifact_name()}")
 
-    from voicemap_tpu.train.loop import fit
+    from voicemap.train.loop import fit
 
     if args.profile:
         import jax

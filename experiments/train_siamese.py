@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicemap_tpu import config as C
+from voicemap import config as C
 
 
 def parse_args():
@@ -44,19 +44,6 @@ def parse_args():
     p.add_argument("--k-way", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", default="bfloat16")
-    p.add_argument("--quant-forward", default="none",
-                   choices=["none", "int8"],
-                   help="EXPERIMENT: blocks-1+ forward convs in s8*s8->s32 "
-                        "with in-step dynamic scales (straight-through "
-                        "backward); re-validate accuracy per config")
-    p.add_argument("--fused-block0", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="fused block-0 train step (custom VJP + Pallas cores); "
-                        "auto = on for the TPU backend")
-    p.add_argument("--pallas-preprocess", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="fused Pallas gather+whiten over a pre-decimated device store "
-                        "(auto = on for TPU)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--log-path", default=None)
     p.add_argument("--synthetic", action="store_true")
@@ -65,13 +52,13 @@ def parse_args():
     p.add_argument("--synthetic-container", default="wav", choices=["wav", "flac"])
     p.add_argument("--pipeline", default="auto",
                    choices=["auto", "device", "streaming"],
-                   help="device = corpus resident in HBM (fused "
+                   help="device = corpus resident in device memory (fused "
                         "on-device sampling); streaming = prefetched "
-                        "host pipeline for corpora larger than HBM; "
+                        "host pipeline for corpora larger than device memory; "
                         "auto picks by estimated store size")
     p.add_argument("--dp", default="auto", choices=["auto", "on", "off"],
                    help="data-parallel training over all attached devices "
-                        "(auto = on for a multi-device TPU backend)")
+                        "(auto = on for a multi-device accelerator)")
     p.add_argument("--max-store-seconds", type=float, default=30.0)
     p.add_argument("--profile", default=None)
     args = p.parse_args()
@@ -83,8 +70,11 @@ def parse_args():
 
 def main():
     args = parse_args()
+    from voicemap import backend
+
+    backend.enable_compile_cache()
     if args.synthetic:
-        from voicemap_tpu.data import synthetic
+        from voicemap.data import synthetic
 
         spec = synthetic.SyntheticSpec(
             n_speakers=args.synthetic_speakers,
@@ -123,18 +113,13 @@ def main():
             n_shot=args.n_shot,
             k_way=args.k_way,
             seed=args.seed,
-            use_pallas_preprocess=(None if args.pallas_preprocess == "auto"
-                                   else args.pallas_preprocess == "on"),
-            use_fused_block0=(None if args.fused_block0 == "auto"
-                              else args.fused_block0 == "on"),
-            quant_forward=args.quant_forward,
             checkpoint_dir=args.checkpoint_dir,
             log_path=args.log_path or os.path.join("logs", "siamese", "metrics.jsonl"),
         ),
     )
     print(f"experiment: {cfg.artifact_name()}")
 
-    from voicemap_tpu.train.loop import fit
+    from voicemap.train.loop import fit
 
     if args.profile:
         import jax

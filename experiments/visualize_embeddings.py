@@ -13,7 +13,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicemap_tpu import config as C
+from voicemap import config as C
 
 
 def parse_args():
@@ -35,12 +35,15 @@ def parse_args():
 
 def main():
     args = parse_args()
+    from voicemap import backend
+
+    backend.enable_compile_cache()
     import numpy as np
 
-    from voicemap_tpu.data.dataset import dataset_from_config
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import build_model, init_model_state
+    from voicemap.data.dataset import dataset_from_config
+    from voicemap.eval import nshot
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import build_model, init_model_state
 
     cfg = C.ExperimentConfig(
         mode=args.mode,
@@ -57,7 +60,7 @@ def main():
     model = build_model(cfg, num_classes=ds.num_classes())
     state = init_model_state(model, cfg)
     if args.checkpoint_dir:
-        from voicemap_tpu.train.checkpoints import CheckpointManager
+        from voicemap.train.checkpoints import CheckpointManager
 
         mgr = CheckpointManager(args.checkpoint_dir)
         restored = (mgr.restore_best(state) if args.which == "best"
@@ -75,10 +78,9 @@ def main():
     proj = centered @ vt[:2].T
 
     np.savez(f"{args.out}.npz", embeddings=table, labels=labels, pca2d=proj)
-    import matplotlib
+    from voicemap.utils.plotting import pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
 
     plt.figure(figsize=(8, 7))
     cmap = plt.cm.tab20

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.ops import distance as D
+from voicemap.ops import distance as D
 
 
 @pytest.fixture(scope="module")

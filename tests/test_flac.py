@@ -6,7 +6,7 @@ bits, stereo decorrelation), plus probe and batch decode."""
 import numpy as np
 import pytest
 
-from voicemap_tpu.data import flac_enc, flac_ext
+from voicemap.data import flac_enc, flac_ext
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -130,7 +130,7 @@ def test_probe(tmp_path):
 
 
 def test_probe_via_audio_dispatch(tmp_path):
-    from voicemap_tpu.data import audio
+    from voicemap.data import audio
 
     x = make_signal(n=5000, seed=14)
     p = str(tmp_path / "d.flac")
@@ -174,8 +174,8 @@ def test_not_flac_rejected(tmp_path):
 
 def test_flac_synthetic_corpus(tmp_path):
     """End-to-end: FLAC-container synthetic corpus → index → dataset."""
-    from voicemap_tpu.data import synthetic
-    from voicemap_tpu.data.dataset import SpeakerDataset
+    from voicemap.data import synthetic
+    from voicemap.data.dataset import SpeakerDataset
 
     spec = synthetic.SyntheticSpec(
         n_speakers=3, utterances_per_speaker=3, min_seconds=1.0,

@@ -24,7 +24,7 @@ CHUNKS = 4  # decode in a few subprocesses so a crash localizes
 _CHILD = r"""
 import sys
 sys.path.insert(0, %r)
-from voicemap_tpu.data import flac_ext
+from voicemap.data import flac_ext
 
 paths = sys.argv[1:]
 decoded = raised = 0
@@ -40,7 +40,7 @@ print(f"decoded={decoded} raised={raised}")
 
 
 def _make_sources(tmp_path):
-    from voicemap_tpu.data import flac_ext
+    from voicemap.data import flac_ext
 
     rng = np.random.default_rng(99)
     srcs = []

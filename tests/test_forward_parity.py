@@ -1,6 +1,6 @@
 """ONE parametrized parity sweep over every eval-forward implementation.
 
-The repo intentionally keeps exactly two bf16 eval forwards — the flax
+The repo intentionally keeps exactly two bf16 eval forwards — the
 reference (``models/encoder.ConvEncoder``) and the serving forward
 (``models/fast_infer.fast_embed``, whose ``_xla_block`` is also the trunk of
 the TP embed fn and the quant calibration sweep) — plus the genuinely
@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import EncoderConfig
-from voicemap_tpu.models.encoder import ConvEncoder
-from voicemap_tpu.models.fast_infer import fast_embed
-from voicemap_tpu.models.quant_infer import quant_embed, quantize_encoder
-from voicemap_tpu.parallel import mesh as mesh_mod
-from voicemap_tpu.parallel.tensor_parallel import make_tp_encoder_embed_fn
+from voicemap.config import EncoderConfig
+from voicemap.models.encoder import ConvEncoder
+from voicemap.models.fast_infer import fast_embed
+from voicemap.models.quant_infer import quant_embed, quantize_encoder
+from voicemap.parallel import mesh as mesh_mod
+from voicemap.parallel.tensor_parallel import make_tp_encoder_embed_fn
 
 
 CONFIGS = [
@@ -45,7 +45,7 @@ def test_all_eval_forwards_agree(spec):
     model = ConvEncoder(cfg)
     r = np.random.default_rng(5)
     x = jnp.asarray(r.standard_normal((8, T, 1)), jnp.float32)
-    variables = model.init(jax.random.PRNGKey(0), x[:1], train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     ref = np.asarray(model.apply(variables, x, train=False))
 
     # serving forward

@@ -6,8 +6,8 @@ values ARE the spec once pinned)."""
 import jax.numpy as jnp
 import numpy as np
 
-from voicemap_tpu.config import DEFAULT_WHITEN_RMS
-from voicemap_tpu.ops import preprocess
+from voicemap.config import DEFAULT_WHITEN_RMS
+from voicemap.ops import preprocess
 
 
 def test_whiten_constant_value():

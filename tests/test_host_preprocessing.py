@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.data.preprocessing import (
+from voicemap.data.preprocessing import (
     BatchPreProcessor,
     label_preprocessor,
     preprocess_instances,
     whiten,
 )
-from voicemap_tpu.ops import preprocess as device_pre
+from voicemap.ops import preprocess as device_pre
 
 
 def test_whiten_matches_device(rng):

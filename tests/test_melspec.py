@@ -1,5 +1,6 @@
-"""Log-mel frontend tests: filterbank properties, jnp STFT vs numpy, fused
-Pallas kernel parity (interpret mode), and the 2D-CNN model end-to-end."""
+"""Log-mel frontend tests: filterbank properties, the rfft log-mel path vs
+numpy across framing geometries and batch shapes, and the 2D-CNN model
+end-to-end."""
 
 import dataclasses
 
@@ -8,11 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import (
+from voicemap.config import (
     DataConfig, EncoderConfig, ExperimentConfig, MelConfig, TrainConfig,
 )
-from voicemap_tpu.ops import melspec
-from voicemap_tpu.ops.pallas_melspec import pallas_log_mel
+from voicemap.ops import melspec
 
 CFG = MelConfig(n_fft=256, hop_length=80, win_length=200, n_mels=32)
 SR = 16000
@@ -47,70 +47,59 @@ def test_frame_signal():
     np.testing.assert_array_equal(np.asarray(frames[0, 3]), np.arange(30, 60))
 
 
+def numpy_log_mel(x, cfg, sr=SR):
+    """Direct numpy log-mel of (B, T) audio: Hann window, uncentered frames,
+    power spectrum, Slaney mel filterbank, log with floor."""
+    win = melspec.hann_window(cfg.win_length)
+    fb = melspec.mel_filterbank(sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
+    n = melspec.num_frames(x.shape[1], cfg)
+    out = np.empty((x.shape[0], n, cfg.n_mels))
+    for f in range(n):
+        seg = x[:, f * cfg.hop_length:f * cfg.hop_length + cfg.win_length]
+        power = np.abs(np.fft.rfft(seg.astype(np.float64) * win, n=cfg.n_fft)) ** 2
+        out[:, f] = np.log(power @ fb + cfg.log_eps)
+    return out
+
+
 def test_log_mel_vs_numpy():
-    """jnp STFT path vs a direct numpy computation."""
+    """rfft path vs a direct numpy computation."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 3200)).astype(np.float32)
     out = np.asarray(melspec.log_mel_spectrogram(jnp.asarray(x), CFG, SR))
-    n_frames = melspec.num_frames(3200, CFG)
-    assert out.shape == (2, n_frames, CFG.n_mels)
-    win = melspec.hann_window(CFG.win_length)
-    fb = melspec.mel_filterbank(SR, CFG.n_fft, CFG.n_mels)
-    for b in range(2):
-        for f in [0, n_frames // 2, n_frames - 1]:
-            seg = x[b, f * CFG.hop_length : f * CFG.hop_length + CFG.win_length]
-            spec = np.fft.rfft(seg * win, n=CFG.n_fft)
-            power = np.abs(spec) ** 2
-            expect = np.log(power @ fb + CFG.log_eps)
-            np.testing.assert_allclose(out[b, f], expect, rtol=1e-4, atol=1e-4)
+    assert out.shape == (2, melspec.num_frames(3200, CFG), CFG.n_mels)
+    np.testing.assert_allclose(out, numpy_log_mel(x, CFG), rtol=1e-4, atol=1e-4)
 
 
-def test_pallas_log_mel_matches_jnp():
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.standard_normal((4, 3200)), jnp.float32)
-    ref = np.asarray(melspec.log_mel_spectrogram(x, CFG, SR))
-    out = np.asarray(pallas_log_mel(x, CFG, SR, block_rows=2, interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
+@pytest.mark.parametrize("cfg,T", [
+    (MelConfig(), 48000),                                 # config #4: 3 s
+    (MelConfig(hop_length=128, win_length=384), 16000),   # hop/win of 128s
+    (MelConfig(n_fft=512, hop_length=160, win_length=512, n_mels=40,
+               fmin=20.0, fmax=7600.0), 4000),            # band limits
+])
+def test_log_mel_geometries_vs_numpy(cfg, T):
+    rng = np.random.default_rng(T)
+    x = rng.standard_normal((2, T)).astype(np.float32)
+    out = np.asarray(melspec.log_mel_spectrogram(jnp.asarray(x), cfg, SR))
+    np.testing.assert_allclose(out, numpy_log_mel(x, cfg), rtol=1e-3, atol=1e-3)
 
 
-def test_pallas_log_mel_fused_geometry():
-    """hop/win multiples of 128 → the fully fused in-kernel framing path."""
-    cfg = MelConfig(n_fft=512, hop_length=128, win_length=384, n_mels=32)
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.standard_normal((4, 5120)), jnp.float32)
-    ref = np.asarray(melspec.log_mel_spectrogram(x, cfg, SR))
-    out = np.asarray(pallas_log_mel(x, cfg, SR, block_rows=2, interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
-
-
-def test_pallas_log_mel_fused_odd_batch():
-    """Fused path pads odd batches to the sublane multiple and slices back
-    (Mosaic requires frame-scratch writes at multiples of 8; found on-chip
-    round 5 via quant mel calibration at B=4)."""
-    cfg = MelConfig(n_fft=512, hop_length=128, win_length=384, n_mels=32)
-    rng = np.random.default_rng(11)
-    for b in (1, 5):
-        x = jnp.asarray(rng.standard_normal((b, 5120)), jnp.float32)
-        ref = np.asarray(melspec.log_mel_spectrogram(x, cfg, SR))
-        out = np.asarray(pallas_log_mel(x, cfg, SR, interpret=True))
-        assert out.shape == ref.shape
-        np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
-
-
-def test_pallas_log_mel_3d_input():
+def test_log_mel_odd_batch_and_3d_input():
+    """(B, T, 1) input with an odd batch gives the same frames as (B, T)."""
     rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.standard_normal((2, 1600, 1)), jnp.float32)
-    ref = np.asarray(melspec.log_mel_spectrogram(x, CFG, SR))
-    out = np.asarray(pallas_log_mel(x, CFG, SR, block_rows=2, interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
+    x = rng.standard_normal((3, 1600)).astype(np.float32)
+    a = np.asarray(melspec.log_mel_spectrogram(jnp.asarray(x[..., None]), CFG, SR))
+    b = np.asarray(melspec.log_mel_spectrogram(jnp.asarray(x), CFG, SR))
+    assert a.shape == (3, melspec.num_frames(1600, CFG), CFG.n_mels)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, numpy_log_mel(x, CFG), rtol=1e-4, atol=1e-4)
 
 
 def test_melspec_classifier_trains(corpus_root):
     """End-to-end config #4: mel frontend + 2D CNN through the train loop."""
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.spectrogram import MelSpecClassifier
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.spectrogram import MelSpecClassifier
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="melspec2d",

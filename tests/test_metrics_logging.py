@@ -4,7 +4,7 @@ import json
 
 import numpy as np
 
-from voicemap_tpu.train.metrics import JSONLWriter, PlateauScheduler
+from voicemap.train.metrics import JSONLWriter, PlateauScheduler
 
 
 def test_jsonl_writer(tmp_path):

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.eval import nshot
+from voicemap.eval import nshot
 
 
 def toy_index(n_speakers=6, utts=4):
@@ -76,11 +76,11 @@ def test_siamese_nshot_perfect_embeddings(metric):
 
 
 def test_evaluate_wrapper_guards(corpus_root):
-    from voicemap_tpu.config import DataConfig, EncoderConfig, ExperimentConfig
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.classifier import SpeakerClassifier
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.config import DataConfig, EncoderConfig, ExperimentConfig
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.classifier import SpeakerClassifier
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="classifier",
@@ -108,13 +108,13 @@ def test_evaluate_wrapper_guards(corpus_root):
 def test_contrastive_siamese_evaluates_by_embedding(corpus_root):
     """Contrastive-trained siamese: the Dense(1) head receives no gradients,
     so evaluate() must score by embedding distance, not head logits."""
-    from voicemap_tpu.config import (
+    from voicemap.config import (
         DataConfig, EncoderConfig, ExperimentConfig, SiameseConfig, TrainConfig,
     )
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.siamese import SiameseNet
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.siamese import SiameseNet
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="siamese",
@@ -151,11 +151,11 @@ def test_contrastive_siamese_evaluates_by_embedding(corpus_root):
 def test_evaluate_fast_path_matches(corpus_root):
     """fast=True (fused inference forward) ≈ standard eval on CPU (exact:
     the CPU fallback is the same XLA math)."""
-    from voicemap_tpu.config import DataConfig, EncoderConfig, ExperimentConfig
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.classifier import SpeakerClassifier
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.config import DataConfig, EncoderConfig, ExperimentConfig
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.classifier import SpeakerClassifier
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="classifier",
@@ -210,11 +210,11 @@ def test_evaluate_sweep_one_table_many_points(corpus_root, tmp_path):
     one point per (n, k); unsupported settings are skipped, not raised;
     points are deterministic and match a standalone evaluate() at the same
     folded key; plot_sweep writes a PNG."""
-    from voicemap_tpu.config import DataConfig, EncoderConfig, ExperimentConfig
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.classifier import SpeakerClassifier
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.config import DataConfig, EncoderConfig, ExperimentConfig
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.classifier import SpeakerClassifier
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="classifier",

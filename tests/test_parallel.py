@@ -9,25 +9,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import (
+from voicemap.config import (
     DataConfig,
     EncoderConfig,
     ExperimentConfig,
     SiameseConfig,
     TrainConfig,
 )
-from voicemap_tpu.models.classifier import SpeakerClassifier
-from voicemap_tpu.models.encoder import ConvEncoder
-from voicemap_tpu.models.siamese import SiameseNet
-from voicemap_tpu.ops.distance import pairwise_sq_euclidean
-from voicemap_tpu.parallel import data_parallel, halo_conv, mesh as mesh_mod
-from voicemap_tpu.parallel.sharded_distance import (
+from voicemap.models.classifier import SpeakerClassifier
+from voicemap.models.encoder import ConvEncoder
+from voicemap.models.siamese import SiameseNet
+from voicemap.ops.distance import pairwise_sq_euclidean
+from voicemap.parallel import data_parallel, halo_conv, mesh as mesh_mod
+from voicemap.parallel.sharded_distance import (
     ring_sq_euclidean,
     sharded_nearest_support,
     sharded_sq_euclidean,
 )
-from voicemap_tpu.train import steps as steps_mod
-from voicemap_tpu.train.loop import init_model_state
+from voicemap.train import steps as steps_mod
+from voicemap.train.loop import init_model_state
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-device CPU mesh"
@@ -83,7 +83,7 @@ def test_halo_encoder_matches_single_device(mesh8):
     x = jnp.asarray(
         np.random.default_rng(3).standard_normal((2, T, 1)), jnp.float32
     )
-    variables = model.init(jax.random.PRNGKey(0), x, train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     expect = model.apply(variables, x, train=False)
     f = halo_conv.make_sharded_embed_fn(ENC, mesh8, axis="data")
     out = f(variables, x)
@@ -103,7 +103,7 @@ def test_halo_encoder_dilated(mesh8):
     x = jnp.asarray(
         np.random.default_rng(4).standard_normal((1, T, 1)), jnp.float32
     )
-    variables = model.init(jax.random.PRNGKey(0), x, train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     expect = model.apply(variables, x, train=False)
     f = halo_conv.make_sharded_embed_fn(cfg, mesh8, axis="data")
     out = f(variables, x)
@@ -129,7 +129,7 @@ def _dp_cfg(corpus_root, mode):
 
 @pytest.fixture(scope="module")
 def dp_store(corpus_root):
-    from voicemap_tpu.data.dataset import SpeakerDataset
+    from voicemap.data.dataset import SpeakerDataset
 
     ds = SpeakerDataset(
         subsets=("dev-clean",), seconds=1.0, data_root=corpus_root, seed=0
@@ -224,9 +224,9 @@ def test_dp_grads_match_shardwise_average(mesh8, dp_store, corpus_root):
 
 def test_dp_streaming_step_matches_host_shards(mesh8, dp_store, corpus_root):
     """The streaming-pipeline DP step (host batch sharded at the jit
-    boundary) produces exactly the pmean-of-shard update the device-store DP
-    semantics define: compare its post-step params against a host loop over
-    the 8 shards (dropout=0 ⇒ key folding is irrelevant)."""
+    boundary, BatchNorm synchronized over the mesh) produces the update of
+    the single-device step on the whole batch (dropout=0 ⇒ key folding is
+    irrelevant)."""
     _, ds = dp_store
     cfg = _dp_cfg(corpus_root, "classifier")
     model = SpeakerClassifier(cfg.encoder, num_classes=ds.num_speakers)
@@ -245,25 +245,16 @@ def test_dp_streaming_step_matches_host_shards(mesh8, dp_store, corpus_root):
     new_state, m = step(state, jnp.asarray(frags), jnp.asarray(y), key)
     assert np.isfinite(float(m["loss"]))
 
-    # Host reference: per-2-element-shard grads/metrics, tree-averaged.
-    from voicemap_tpu.train.state import apply_updates
+    # Single-device reference: the same update on the full 16-row batch.
+    from voicemap.train.state import apply_updates
 
     x_all = steps_mod.preprocess_fragments(jnp.asarray(frags), cfg)
-    shard_g, shard_bs, shard_loss = [], [], []
-    for i in range(8):
-        sl = slice(2 * i, 2 * i + 2)
-        (loss, (bs_i, _)), g = jax.value_and_grad(loss_fn, has_aux=True)(
-            state.params, state.batch_stats, x_all[sl],
-            jnp.asarray(y[sl]), key,
-        )
-        shard_g.append(g)
-        shard_bs.append(bs_i)
-        shard_loss.append(float(loss))
-    g_avg = jax.tree.map(lambda *t: jnp.mean(jnp.stack(t), 0), *shard_g)
-    bs_avg = jax.tree.map(lambda *t: jnp.mean(jnp.stack(t), 0), *shard_bs)
-    expect = apply_updates(state, g_avg, tx, bs_avg)
+    (loss, (bs_full, _)), g_full = jax.value_and_grad(loss_fn, has_aux=True)(
+        state.params, state.batch_stats, x_all, jnp.asarray(y), key,
+    )
+    expect = apply_updates(state, g_full, tx, bs_full)
 
-    np.testing.assert_allclose(float(m["loss"]), np.mean(shard_loss),
+    np.testing.assert_allclose(float(m["loss"]), float(loss),
                                rtol=1e-5, atol=1e-6)
     for a, b in zip(jax.tree.leaves(expect.params),
                     jax.tree.leaves(new_state.params)):
@@ -300,7 +291,7 @@ def test_dp_streaming_siamese_step(mesh8, dp_store, corpus_root):
 # ---------------------------------------------------------------------------
 
 def test_dp_sp_grads_match_single_device(dp_store):
-    """(data=2 × seq=4) grads == single-device full-batch flax train grads.
+    """(data=2 × seq=4) grads == single-device full-batch train grads.
 
     BN stats reduce over both axes inside the sharded forward, so the 2-D
     step has exactly the single-device full-batch semantics — unlike plain
@@ -308,7 +299,7 @@ def test_dp_sp_grads_match_single_device(dp_store):
     """
     from jax.sharding import PartitionSpec as P
 
-    from voicemap_tpu.parallel import dp_sp
+    from voicemap.parallel import dp_sp
 
     store, ds = dp_store
     enc = dataclasses.replace(
@@ -327,9 +318,7 @@ def test_dp_sp_grads_match_single_device(dp_store):
     mesh2 = mesh_mod.make_mesh({"data": 2, "seq": 4})
     model = SpeakerClassifier(enc, num_classes=ds.num_speakers)
     T = 1024  # divisible by 4 seq shards × pools
-    variables = model.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, T, 1)), train=False
-    )
+    variables = model.init(jax.random.PRNGKey(0))
     params, bs = variables["params"], variables["batch_stats"]
 
     r = np.random.default_rng(6)
@@ -337,7 +326,7 @@ def test_dp_sp_grads_match_single_device(dp_store):
     y = jnp.asarray(r.integers(0, ds.num_speakers, 16), jnp.int32)
     key = jax.random.PRNGKey(2)
 
-    # Single-device full-batch reference (flax train-mode semantics).
+    # Single-device full-batch reference (train-mode semantics).
     ref_loss_fn = steps_mod.classifier_loss_fn(model)
     (ref_loss, _), g_ref = jax.value_and_grad(ref_loss_fn, has_aux=True)(
         params, bs, x, y, key
@@ -372,7 +361,7 @@ def test_dp_sp_grads_match_single_device(dp_store):
 
 
 def test_dp_sp_classifier_trains(dp_store, corpus_root):
-    from voicemap_tpu.parallel import dp_sp
+    from voicemap.parallel import dp_sp
 
     store, ds = dp_store
     cfg = _dp_cfg(corpus_root, "classifier")
@@ -399,14 +388,14 @@ def test_dp_sp_classifier_trains(dp_store, corpus_root):
 def test_tp_real_encoder_embed_matches_apply():
     """The REAL ConvEncoder eval forward with a TP embed head on a 2-D
     (data=4 × model=2) mesh == plain model.apply (VERDICT r2 weak #5)."""
-    from voicemap_tpu.parallel.tensor_parallel import make_tp_encoder_embed_fn
+    from voicemap.parallel.tensor_parallel import make_tp_encoder_embed_fn
 
     mesh2 = mesh_mod.make_mesh({"data": 4, "model": 2})
     model = ConvEncoder(ENC)
     T = 1024
     r = np.random.default_rng(13)
     x = jnp.asarray(r.standard_normal((8, T, 1)), jnp.float32)
-    variables = model.init(jax.random.PRNGKey(0), x[:1], train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     expect = model.apply(variables, x, train=False)
     f = make_tp_encoder_embed_fn(ENC, mesh2)
     out = f(variables, x)
@@ -415,7 +404,7 @@ def test_tp_real_encoder_embed_matches_apply():
 
 
 def test_tp_embed_head_matches_dense(mesh8):
-    from voicemap_tpu.parallel.tensor_parallel import make_tp_embed_head
+    from voicemap.parallel.tensor_parallel import make_tp_embed_head
 
     r = np.random.default_rng(6)
     x = jnp.asarray(r.standard_normal((4, 32)), jnp.float32)
@@ -428,7 +417,7 @@ def test_tp_embed_head_matches_dense(mesh8):
 
 
 def test_tp_mlp_matches_dense(mesh8):
-    from voicemap_tpu.parallel.tensor_parallel import make_tp_mlp
+    from voicemap.parallel.tensor_parallel import make_tp_mlp
 
     r = np.random.default_rng(7)
     x = jnp.asarray(r.standard_normal((4, 16)), jnp.float32)
@@ -444,7 +433,7 @@ def test_tp_mlp_matches_dense(mesh8):
 
 def test_tp_on_2d_mesh():
     """TP over the 'model' axis of a (data=4, model=2) mesh."""
-    from voicemap_tpu.parallel.tensor_parallel import make_tp_embed_head
+    from voicemap.parallel.tensor_parallel import make_tp_embed_head
 
     mesh = mesh_mod.make_mesh({"data": 4, "model": 2})
     r = np.random.default_rng(8)
@@ -466,7 +455,7 @@ def _stage_dense(params, x):
 
 
 def test_gpipe_matches_sequential(mesh8):
-    from voicemap_tpu.parallel.pipeline_parallel import make_gpipe_fn
+    from voicemap.parallel.pipeline_parallel import make_gpipe_fn
 
     r = np.random.default_rng(9)
     S, D, n_micro, mb = 8, 16, 6, 4
@@ -485,7 +474,7 @@ def test_gpipe_matches_sequential(mesh8):
 
 
 def test_gpipe_single_microbatch(mesh8):
-    from voicemap_tpu.parallel.pipeline_parallel import make_gpipe_fn
+    from voicemap.parallel.pipeline_parallel import make_gpipe_fn
 
     r = np.random.default_rng(10)
     S, D = 8, 8
@@ -503,7 +492,7 @@ def test_gpipe_single_microbatch(mesh8):
 def test_gpipe_grads_match_sequential(mesh8):
     """Backward THROUGH the pipeline: stacked-stage grads == sequential
     autodiff (the cotangents ride the inverted ppermute ring)."""
-    from voicemap_tpu.parallel.pipeline_parallel import make_gpipe_fn
+    from voicemap.parallel.pipeline_parallel import make_gpipe_fn
 
     r = np.random.default_rng(11)
     S, D, n_micro, mb = 8, 16, 5, 4
@@ -539,7 +528,7 @@ def test_gpipe_train_step_learns(mesh8):
     through the pipeline reduce the loss."""
     import optax
 
-    from voicemap_tpu.parallel.pipeline_parallel import make_gpipe_train_step
+    from voicemap.parallel.pipeline_parallel import make_gpipe_train_step
 
     r = np.random.default_rng(12)
     S, D, n_micro, mb = 8, 8, 4, 4
@@ -573,8 +562,8 @@ def test_gpipe_train_step_learns(mesh8):
 # ---------------------------------------------------------------------------
 
 def test_pod_evaluate_matches_single_device(mesh8, dp_store, corpus_root):
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.parallel.pod_eval import pod_evaluate
+    from voicemap.eval import nshot
+    from voicemap.parallel.pod_eval import pod_evaluate
 
     store, ds = dp_store
     cfg = _dp_cfg(corpus_root, "classifier")
@@ -597,8 +586,8 @@ def test_pod_siamese_head_eval_matches_single_device(
     (BASELINE config #5's siamese branch)."""
     import dataclasses
 
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.parallel.pod_eval import pod_evaluate
+    from voicemap.eval import nshot
+    from voicemap.parallel.pod_eval import pod_evaluate
 
     store, ds = dp_store
     cfg = _dp_cfg(corpus_root, "siamese")
@@ -617,8 +606,8 @@ def test_pod_siamese_head_eval_matches_single_device(
 
 
 def test_pod_sharded_embed_table_matches_dense(mesh8, dp_store, corpus_root):
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.parallel.pod_eval import make_sharded_embed_table_fn
+    from voicemap.eval import nshot
+    from voicemap.parallel.pod_eval import make_sharded_embed_table_fn
 
     store, ds = dp_store
     cfg = _dp_cfg(corpus_root, "classifier")
@@ -644,7 +633,7 @@ def test_halo_encoder_grads_match_dense(mesh8):
     x = jnp.asarray(
         np.random.default_rng(12).standard_normal((2, T, 1)), jnp.float32
     )
-    variables = model.init(jax.random.PRNGKey(0), x, train=False)
+    variables = model.init(jax.random.PRNGKey(0))
 
     def dense_loss(v):
         return jnp.sum(model.apply(v, x, train=False) ** 2)
@@ -662,7 +651,7 @@ def test_halo_encoder_grads_match_dense(mesh8):
 
 
 def test_distributed_helpers_single_process():
-    from voicemap_tpu.parallel import distributed
+    from voicemap.parallel import distributed
 
     assert distributed.initialize() is False  # single-process no-op
     mesh = distributed.global_mesh()
@@ -673,35 +662,10 @@ def test_distributed_helpers_single_process():
         distributed.global_mesh({"data": 3})
 
 
-def test_dp_classifier_fused_block0_matches_flax_step(mesh8, dp_store, corpus_root):
-    """The fused block-0 loss path under shard_map: same losses as the flax
-    DP step at float32 (the fused custom VJP composes with pmean of grads
-    and BN stats)."""
-    import dataclasses
-
-    store, ds = dp_store
-    base = _dp_cfg(corpus_root, "classifier")
-    runs = {}
-    for flag in (True, False):
-        cfg = base.replace(
-            train=dataclasses.replace(base.train, use_fused_block0=flag)
-        )
-        model = SpeakerClassifier(cfg.encoder, num_classes=ds.num_speakers)
-        state = init_model_state(model, cfg)
-        step, _ = data_parallel.make_dp_classifier_train_step(model, cfg, mesh8)
-        key = jax.random.PRNGKey(3)
-        losses = []
-        for _ in range(3):
-            state, m = step(state, store, key)
-            losses.append(float(m["loss"]))
-        runs[flag] = losses
-    np.testing.assert_allclose(runs[True], runs[False], rtol=1e-4, atol=1e-4)
-
-
 def test_fit_dp_on_cpu_mesh(corpus_root):
     """fit(dp='on') trains data-parallel over the faked 8-device mesh from
     the real high-level entry point (CLI-reachable via --dp on)."""
-    from voicemap_tpu.train.loop import fit
+    from voicemap.train.loop import fit
 
     cfg = _dp_cfg(corpus_root, "classifier").replace(
         train=TrainConfig(batch_size=16, learning_rate=3e-3, num_steps=8,
@@ -724,8 +688,8 @@ def test_gpipe_real_encoder_matches_sequential():
     """2-stage GPipe (block 0 | blocks 1+ + head) over a pp=2 mesh equals the
     sequential eval forward (round-3 verdict weak #4: PP must touch the real
     model like TP and SP do)."""
-    from voicemap_tpu.models.fast_infer import fast_embed
-    from voicemap_tpu.parallel.pipeline_parallel import (
+    from voicemap.models.fast_infer import fast_embed
+    from voicemap.parallel.pipeline_parallel import (
         make_gpipe_real_encoder_fn,
     )
 
@@ -734,7 +698,7 @@ def test_gpipe_real_encoder_matches_sequential():
     T, mb, n_micro = 512, 2, 4
     r = np.random.default_rng(3)
     x = jnp.asarray(r.standard_normal((n_micro, mb, T, 1)), jnp.float32)
-    variables = model.init(jax.random.PRNGKey(0), x[0], train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     fn, pack = make_gpipe_real_encoder_fn(ENC, mesh, variables, mb, T, n_micro)
     out = fn(pack(variables), x)
     expect = np.asarray(
@@ -745,12 +709,12 @@ def test_gpipe_real_encoder_matches_sequential():
 
 def test_gpipe_real_grads_match_sequential_train_mode():
     """Backward through the real-encoder pipeline (transposed ppermute ring)
-    == sequential autodiff of the flax TRAIN-MODE forward applied per
+    == sequential autodiff of the TRAIN-MODE forward applied per
     microbatch (per-microbatch batch-stat BN — the production training
     semantics, round-4 verdict item 7), compared in the packed per-stage
     flat space (pack() is a fixed linear reindexing, so packing the
     sequential grad tree is exact)."""
-    from voicemap_tpu.parallel.pipeline_parallel import (
+    from voicemap.parallel.pipeline_parallel import (
         make_gpipe_real_train_step,
     )
 
@@ -762,7 +726,7 @@ def test_gpipe_real_grads_match_sequential_train_mode():
     y = jnp.asarray(
         r.standard_normal((n_micro, mb, ENC.embedding_dim)), jnp.float32
     )
-    variables = model.init(jax.random.PRNGKey(1), x[0], train=False)
+    variables = model.init(jax.random.PRNGKey(1))
 
     def loss_fn(out, tgt):
         return jnp.mean((out - tgt) ** 2)
@@ -774,7 +738,7 @@ def test_gpipe_real_grads_match_sequential_train_mode():
 
     def seq_loss(v):
         outs = [
-            model.apply(v, x[t], train=True, mutable=["batch_stats"])[0]
+            model.apply(v, x[t], train=True)[0]
             for t in range(n_micro)
         ]
         return loss_fn(jnp.stack(outs), y)
@@ -787,10 +751,10 @@ def test_gpipe_real_grads_match_sequential_train_mode():
 
 
 def test_gpipe_real_bn_stats_match_sequential_flax_chain():
-    """apply_stats(variables, pipeline stats) == chaining flax
-    ``apply(train=True, mutable=['batch_stats'])`` microbatch by microbatch
+    """apply_stats(variables, pipeline stats) == chaining
+    ``ConvEncoder.apply(train=True)`` microbatch by microbatch
     — the running-stat EMA the production train loop performs."""
-    from voicemap_tpu.parallel.pipeline_parallel import (
+    from voicemap.parallel.pipeline_parallel import (
         make_gpipe_real_encoder_fn,
     )
 
@@ -799,7 +763,7 @@ def test_gpipe_real_bn_stats_match_sequential_flax_chain():
     T, mb, n_micro = 256, 2, 3
     r = np.random.default_rng(5)
     x = jnp.asarray(r.standard_normal((n_micro, mb, T, 1)), jnp.float32)
-    variables = model.init(jax.random.PRNGKey(2), x[0], train=False)
+    variables = model.init(jax.random.PRNGKey(2))
 
     fn, pack, apply_stats = make_gpipe_real_encoder_fn(
         ENC, mesh, variables, mb, T, n_micro, train=True
@@ -807,13 +771,13 @@ def test_gpipe_real_bn_stats_match_sequential_flax_chain():
     out, stats = fn(pack(variables), x)
     new_bst = apply_stats(variables, stats)
 
-    # Sequential flax reference: thread the mutated batch_stats through.
+    # Sequential reference: thread the updated batch_stats through.
     v = variables
     outs = []
     for t in range(n_micro):
-        o, mut = model.apply(v, x[t], train=True, mutable=["batch_stats"])
+        o, new_stats = model.apply(v, x[t], train=True)
         outs.append(o)
-        v = {"params": v["params"], "batch_stats": mut["batch_stats"]}
+        v = {"params": v["params"], "batch_stats": new_stats}
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(jnp.stack(outs)), rtol=1e-4, atol=1e-4
     )
@@ -830,9 +794,9 @@ def test_pod_evaluate_int8_matches_single_device(mesh8, dp_store, corpus_root):
     """Pod-sharded embed table through the int8 serving path == single-device
     int8 eval bit-for-bit (deterministic per-index embeds + same task key) —
     config #5's eval path composed with the serving quantization."""
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.models.quant_infer import quantize_from_store
-    from voicemap_tpu.parallel.pod_eval import pod_evaluate
+    from voicemap.eval import nshot
+    from voicemap.models.quant_infer import quantize_from_store
+    from voicemap.parallel.pod_eval import pod_evaluate
 
     store, ds = dp_store
     cfg = _dp_cfg(corpus_root, "classifier")

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from voicemap_tpu.ops import preprocess
+from voicemap.ops import preprocess
 
 
 def np_whiten(batch, rms=0.038021, eps=1e-8):

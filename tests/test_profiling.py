@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from voicemap_tpu.utils import profiling
+from voicemap.utils import profiling
 
 
 def test_time_fn():

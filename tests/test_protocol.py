@@ -6,14 +6,14 @@ import jax
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import (
+from voicemap.config import (
     DataConfig, EncoderConfig, ExperimentConfig, TrainConfig,
 )
-from voicemap_tpu.data import synthetic
-from voicemap_tpu.data.dataset import SpeakerDataset
-from voicemap_tpu.eval import protocol
-from voicemap_tpu.models.classifier import SpeakerClassifier
-from voicemap_tpu.train.loop import init_model_state
+from voicemap.data import synthetic
+from voicemap.data.dataset import SpeakerDataset
+from voicemap.eval import protocol
+from voicemap.models.classifier import SpeakerClassifier
+from voicemap.train.loop import init_model_state
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +203,7 @@ def test_verification_protocol_runs_and_is_reproducible(proto_corpus):
 def test_protocol_store_cache_shared(proto_corpus, monkeypatch):
     """One store_cache across the accuracy and verification passes ⇒ the
     corpus is indexed/decoded/shipped once per subset, not once per pass."""
-    import voicemap_tpu.data.dataset as dsmod
+    import voicemap.data.dataset as dsmod
 
     model, state, cfg = _model_and_cfg(proto_corpus)
     m = protocol.load_manifest()
@@ -214,7 +214,7 @@ def test_protocol_store_cache_shared(proto_corpus, monkeypatch):
     real = dsmod.dataset_from_config
     monkeypatch.setattr(dsmod, "dataset_from_config",
                         lambda c: (calls.append(1), real(c))[1])
-    import voicemap_tpu.eval.nshot as nshot_mod
+    import voicemap.eval.nshot as nshot_mod
 
     embeds = []
     real_embed = nshot_mod.embed_all
@@ -248,7 +248,7 @@ def test_verification_protocol_v1_manifest_is_noop(proto_corpus):
 
 
 def test_verification_stderr_helpers():
-    from voicemap_tpu.eval import verification as V
+    from voicemap.eval import verification as V
 
     # Hanley-McNeil at A=0.5 with n_s=n_d=n reduces to ~sqrt((1/12)(2n-1)/n^2)
     n = 1000
@@ -271,7 +271,7 @@ def test_check_corpus_per_subset_on_combined_dataset(proto_corpus):
         ds = SpeakerDataset(subsets=(s,), seconds=3.0,
                             data_root=proto_corpus, seed=0)
         ident[s] = {
-            "n_speakers": int(ds.df.speaker_id.nunique()),
+            "n_speakers": len(np.unique(ds.df.speaker_id)),
             "n_utterances": int(len(ds.df)),
             "fingerprint": protocol.corpus_fingerprint(ds),
         }

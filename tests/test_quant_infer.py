@@ -1,7 +1,7 @@
 """int8 PTQ inference path (models/quant_infer.py) vs the bf16/f32 encoder.
 
 The reference serves f32 Keras inference (``voicemap/models.py ::
-get_baseline_convolutional_encoder``); the quantized path is a TPU-native
+get_baseline_convolutional_encoder``); the quantized path is a
 serving addition, so parity here is statistical (embedding fidelity and
 nearest-neighbor decision agreement), not bitwise.
 """
@@ -13,10 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import EncoderConfig
-from voicemap_tpu.models.encoder import ConvEncoder
-from voicemap_tpu.models.quant_infer import (
-    calibrate_scales, quant_embed, quantize_encoder,
+from voicemap.config import EncoderConfig
+from voicemap.models.encoder import ConvEncoder
+from voicemap.models.quant_infer import (
+    _quant_block, calibrate_scales, int8_conv, quant_embed,
+    quantize_encoder,
 )
 
 F32 = dict(compute_dtype="float32")
@@ -27,7 +28,7 @@ def _make(cfg, seed=0, batch=4, t=1024):
     x = jnp.asarray(
         np.random.default_rng(seed).standard_normal((batch, t, 1)), jnp.float32
     )
-    variables = model.init(jax.random.PRNGKey(0), x, train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     return model, variables, x
 
 
@@ -146,13 +147,13 @@ def test_embed_all_int8_path(corpus_root):
     """The serving-table entry point (eval/nshot.embed_all) accepts qvars and
     produces embeddings close to the f32 table — the path the embed CLI's
     --int8 flag drives."""
-    from voicemap_tpu.config import DataConfig, ExperimentConfig
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.models.classifier import SpeakerClassifier
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
-    from voicemap_tpu.train.steps import fetch_batch
+    from voicemap.config import DataConfig, ExperimentConfig
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.eval import nshot
+    from voicemap.models.classifier import SpeakerClassifier
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
+    from voicemap.train.steps import fetch_batch
 
     cfg = ExperimentConfig(
         mode="classifier",
@@ -187,13 +188,13 @@ def test_embed_all_int8_path(corpus_root):
 def test_nshot_evaluate_int8_close_to_f32(corpus_root):
     """nshot.evaluate(qvars=...) — the deployment accuracy-parity run — stays
     within a few task-flips of the f32 accuracy on the same pinned tasks."""
-    from voicemap_tpu.config import DataConfig, ExperimentConfig, TrainConfig
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.eval import nshot
-    from voicemap_tpu.models.classifier import SpeakerClassifier
-    from voicemap_tpu.models.quant_infer import quantize_from_store
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.config import DataConfig, ExperimentConfig, TrainConfig
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.eval import nshot
+    from voicemap.models.classifier import SpeakerClassifier
+    from voicemap.models.quant_infer import quantize_from_store
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = ExperimentConfig(
         mode="classifier",
@@ -220,7 +221,7 @@ def test_qvars_save_load_roundtrip(tmp_path):
     """The .npz serving artifact reproduces the in-memory quantization
     bit-exactly (int8 weights and f32 epilogue vectors identical, so the
     deployed embeddings are identical too)."""
-    from voicemap_tpu.models.quant_infer import load_qvars, save_qvars
+    from voicemap.models.quant_infer import load_qvars, save_qvars
 
     cfg = EncoderConfig(filters=16, embedding_dim=32, dropout=0.0, **F32)
     _, variables, x = _make(cfg, seed=7)
@@ -250,13 +251,13 @@ def test_quantize_rejects_single_block():
 
 def test_quant_embed_mel_close_to_f32():
     """config #4 int8 path (quant_embed_mel): all conv2d blocks in
-    s8×s8→s32 with folded epilogues track the flax MelSpecEncoder embed
+    s8×s8→s32 with folded epilogues track the MelSpecEncoder embed
     within quantization error; artifacts round-trip with kind='mel'."""
-    from voicemap_tpu.config import MelConfig
-    from voicemap_tpu.models.quant_infer import (
+    from voicemap.config import MelConfig
+    from voicemap.models.quant_infer import (
         load_qvars, quant_embed_mel, quantize_mel_encoder, save_qvars,
     )
-    from voicemap_tpu.models.spectrogram import MelSpecEncoder
+    from voicemap.models.spectrogram import MelSpecEncoder
 
     cfg = EncoderConfig(filters=16, embedding_dim=32, dropout=0.0, **F32)
     mel = MelConfig(hop_length=128, win_length=384)
@@ -265,7 +266,7 @@ def test_quant_embed_mel_close_to_f32():
         np.random.default_rng(3).standard_normal((4, 8192, 1)) * 0.1,
         jnp.float32,
     )
-    variables = model.init(jax.random.PRNGKey(0), x, train=False)
+    variables = model.init(jax.random.PRNGKey(0))
     qvars = quantize_mel_encoder(variables, cfg, mel, x)
     assert qvars["kind"] == "mel"
     assert len(qvars["blocks"]) == len(cfg.filter_multipliers)
@@ -292,8 +293,8 @@ def test_quant_kind_mode_mismatch_raises():
     """embed_all refuses a wave artifact for melspec2d and vice versa."""
     import dataclasses
 
-    from voicemap_tpu.config import DataConfig, ExperimentConfig
-    from voicemap_tpu.eval import nshot
+    from voicemap.config import DataConfig, ExperimentConfig
+    from voicemap.eval import nshot
 
     cfg = EncoderConfig(filters=8, embedding_dim=16, dropout=0.0, **F32)
     model, variables, x = _make(cfg, seed=4, t=512)
@@ -301,3 +302,112 @@ def test_quant_kind_mode_mismatch_raises():
     exp = ExperimentConfig(mode="melspec2d", data=DataConfig(), encoder=cfg)
     with pytest.raises(ValueError, match="artifact kind"):
         nshot.embed_all(None, None, None, exp, qvars=qvars)
+
+
+# --------------------------------------------------------------------------
+# The int8 convolution and block against exact numpy integer arithmetic
+# --------------------------------------------------------------------------
+
+def numpy_int8_conv(x, w, dilation=1):
+    """SAME conv of int8 (B, *spatial, Cin) by (*window, Cin, Cout), int64."""
+    window = w.shape[:-2]
+    reach = [(k - 1) * dilation for k in window]
+    xp = np.pad(x.astype(np.int64),
+                [(0, 0)] + [(r // 2, r - r // 2) for r in reach] + [(0, 0)])
+    out = 0
+    for tap in np.ndindex(*window):
+        view = xp[(slice(None),) + tuple(slice(t * dilation, t * dilation + n)
+                                         for t, n in zip(tap, x.shape[1:-1]))]
+        out = out + view @ w[tap].astype(np.int64)
+    return out
+
+
+def _rand_qblk(rng, w_shape):
+    cout = w_shape[-1]
+    return {"w_q": rng.integers(-127, 128, w_shape).astype(np.int8),
+            "alpha": rng.uniform(1e-4, 1e-3, cout).astype(np.float32),
+            "beta": rng.uniform(-500, 500, cout).astype(np.float32),
+            "gamma": rng.uniform(-5, 5, cout).astype(np.float32)}
+
+
+# (cin, cout, T, k, dilation): the mid-block shapes the int8 path serves,
+# odd lengths, even kernels and dilations.
+CONV1D = [(16, 32, 60, 3, 1), (16, 32, 64, 3, 1), (8, 16, 30, 3, 1),
+          (16, 16, 48, 3, 2), (16, 16, 47, 4, 1), (128, 256, 250, 3, 1),
+          (4, 8, 17, 5, 3), (1, 8, 33, 32, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,T,k,dil", CONV1D)
+def test_int8_conv_bit_exact(cin, cout, T, k, dil):
+    rng = np.random.default_rng(cin * 31 + T)
+    x = rng.integers(-127, 128, (3, T, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, cin, cout)).astype(np.int8)
+    got = np.asarray(int8_conv(jnp.asarray(x), jnp.asarray(w), dil))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, numpy_int8_conv(x, w, dil))
+
+
+@pytest.mark.parametrize("H,W,cin,cout", [(12, 9, 1, 8), (7, 8, 8, 16),
+                                          (5, 5, 16, 4)])
+def test_int8_conv2d_bit_exact(H, W, cin, cout):
+    rng = np.random.default_rng(H * W)
+    x = rng.integers(-127, 128, (2, H, W, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    np.testing.assert_array_equal(np.asarray(int8_conv(jnp.asarray(x), jnp.asarray(w))),
+                                  numpy_int8_conv(x, w))
+
+
+def _numpy_epilogue(acc, qblk, pool, last):
+    z = (np.maximum(acc.astype(np.float32) + qblk["beta"], 0.0) * qblk["alpha"]
+         + qblk["gamma"])
+    y = z if last else np.clip(np.round(z), -127, 127)
+    if pool > 1:
+        B, T, C = y.shape
+        y = y[:, :(T // pool) * pool].reshape(B, T // pool, pool, C).max(axis=2)
+    return y
+
+
+@pytest.mark.parametrize("cin,cout,T,pool,last", [
+    (16, 32, 60, 2, False), (16, 32, 64, 2, False), (8, 16, 30, 2, True),
+    (16, 16, 47, 2, False), (16, 16, 48, 1, False), (32, 8, 33, 2, True),
+])
+def test_quant_block_matches_numpy(cin, cout, T, pool, last):
+    """Requantized codes within one step of the numpy epilogue over the
+    exact accumulator (the f32 epilogue may round a .5 either way); the
+    dequantized last block within bf16 rounding."""
+    rng = np.random.default_rng(T)
+    x = rng.integers(-127, 128, (4, T, cin)).astype(np.int8)
+    qblk = _rand_qblk(rng, (3, cin, cout))
+    got = _quant_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in qblk.items()},
+                       pool, 1, last=last, out_dtype=jnp.bfloat16)
+    want = _numpy_epilogue(numpy_int8_conv(x, qblk["w_q"]), qblk, pool, last)
+    assert got.dtype == (jnp.bfloat16 if last else jnp.int8)
+    got = np.asarray(got.astype(jnp.float32))
+    if last:
+        np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+    else:
+        assert np.abs(got - want).max() <= 1
+
+
+def test_quant_block2d_matches_numpy():
+    rng = np.random.default_rng(11)
+    x = rng.integers(-127, 128, (2, 10, 9, 8)).astype(np.int8)
+    qblk = _rand_qblk(rng, (3, 3, 8, 16))
+    got = np.asarray(_quant_block(jnp.asarray(x), qblk, 2, last=False,
+                                  out_dtype=jnp.bfloat16), np.int32)
+    acc = numpy_int8_conv(x, qblk["w_q"])
+    z = np.clip(np.round(np.maximum(acc + qblk["beta"], 0) * qblk["alpha"]
+                         + qblk["gamma"]), -127, 127)
+    want = z[:, :10, :8].reshape(2, 5, 2, 4, 2, 16).max(axis=(2, 4))
+    assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,T,k,dil", CONV1D)
+def test_int8_conv_compiled_bit_exact(cin, cout, T, k, dil):
+    """On the card the int8 GEMMs run on the tensor cores; still exact."""
+    rng = np.random.default_rng(cin * 31 + T)
+    x = rng.integers(-127, 128, (3, T, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, cin, cout)).astype(np.int8)
+    got = np.asarray(jax.jit(int8_conv, static_argnums=2)(x, w, dil))
+    np.testing.assert_array_equal(got, numpy_int8_conv(x, w, dil))

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from voicemap_tpu.ops import sampling
+from voicemap.ops import sampling
 
 
 @pytest.fixture(scope="module")

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from voicemap_tpu.config import (
+from voicemap.config import (
     DataConfig, EncoderConfig, ExperimentConfig, SiameseConfig, TrainConfig,
 )
-from voicemap_tpu.eval.verification import (
+from voicemap.eval.verification import (
     auc_from_scores,
     eer_from_scores,
     evaluate_verification,
@@ -74,10 +74,10 @@ def _cfg(corpus_root, **siamese_kw):
 
 @pytest.fixture(scope="module")
 def siamese_setup(corpus_root):
-    from voicemap_tpu.data.dataset import SpeakerDataset
-    from voicemap_tpu.models.siamese import SiameseNet
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
+    from voicemap.data.dataset import SpeakerDataset
+    from voicemap.models.siamese import SiameseNet
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
 
     cfg = _cfg(corpus_root)
     ds = SpeakerDataset(subsets=("dev-clean",), seconds=1.0,
@@ -118,10 +118,10 @@ def test_evaluate_verification_end_to_end(siamese_setup):
 def test_verification_same_label_orientation(corpus_root, siamese_setup):
     """same_label=1 flips the head-logit orientation: the reported EER must
     be ≤ 0.5-symmetric (scoring through -logits), not 1-EER."""
-    from voicemap_tpu.models.siamese import SiameseNet
-    from voicemap_tpu.train import steps as steps_mod
-    from voicemap_tpu.train.loop import init_model_state
-    from voicemap_tpu.data.dataset import SpeakerDataset
+    from voicemap.models.siamese import SiameseNet
+    from voicemap.train import steps as steps_mod
+    from voicemap.train.loop import init_model_state
+    from voicemap.data.dataset import SpeakerDataset
 
     cfg1 = _cfg(corpus_root, same_label=1)
     ds = SpeakerDataset(subsets=("dev-clean",), seconds=1.0,
